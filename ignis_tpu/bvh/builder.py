@@ -2,9 +2,10 @@
 
 Analog of the reference's madmann91/bvh-based build + N-ary collapse
 (/root/reference/src/runtime/bvh/SceneBVHAdapter.h:110, NArityBvh.h), laid
-out for TPU traversal (ops/bvh.py): node child bounds as struct-of-arrays
-[n_nodes, 8], leaves as contiguous ranges of a reordered triangle soup so
-leaf intersection is a short static loop over gathered triangles.
+out for traversal (ops/bvh.py, ops/bvh_gpu.py): node child bounds as
+struct-of-arrays [n_nodes, 8], leaves as contiguous ranges of a reordered
+triangle soup so leaf intersection is a short static loop over gathered
+triangles.
 
 Numpy only; runs at scene build. (A C++ builder can replace this for huge
 scenes; the output layout stays.)
@@ -191,180 +192,3 @@ def build_bvh8(v0: np.ndarray, e1: np.ndarray, e2: np.ndarray) -> BVH8:
     return BVH8(cmin[..., 0], cmin[..., 1], cmin[..., 2],
                 cmax[..., 0], cmax[..., 1], cmax[..., 2],
                 child, np.asarray(prim_order, np.int32))
-
-
-# ---------------------------------------------------------------------------
-# Chunked-leaf BVH (TPU traversal layout)
-# ---------------------------------------------------------------------------
-
-CHUNK = 128          # leaf granule = one VPU sweep (ops/pallas_bvh.py)
-MAX_LEAF_CHUNKS = 15  # leaf code packs a 4-bit chunk count
-
-
-class ChunkBVH(NamedTuple):
-    """BVH8 whose leaves are padded 128-triangle chunks of the reordered
-    soup — the traversal unit of the Pallas kernel (ops/pallas_bvh.py) and
-    the XLA fallback (ops/bvh.py). Child encoding: 0 = empty, > 0 = inner
-    node index, < 0 = leaf with lv = -(code)-1, start_chunk = lv >> 4,
-    n_chunks = lv & 15.
-
-    prim_order maps new soup position -> original triangle index, with -1
-    marking degenerate padding rows inserted to round each leaf up to
-    whole chunks. old2new maps the source BVH8's soup position -> padded
-    position, so the tri-leaf BVH8's leaf offsets can be remapped onto
-    the same padded soup (one soup, two traversal structures).
-    """
-    cmin_x: np.ndarray  # [n_nodes, 8]
-    cmin_y: np.ndarray
-    cmin_z: np.ndarray
-    cmax_x: np.ndarray
-    cmax_y: np.ndarray
-    cmax_z: np.ndarray
-    child: np.ndarray   # [n_nodes, 8] int32
-    prim_order: np.ndarray  # [n_padded] int32, -1 = padding
-    old2new: np.ndarray     # [n_tris] int32
-
-
-def chunkify_bvh8(b: BVH8, chunk: int = CHUNK) -> ChunkBVH:
-    """Collapse a triangle-leaf BVH8 into a chunked-leaf BVH.
-
-    Every BVH8 subtree covers a contiguous range of the (already
-    reordered) soup, so maximal subtrees with <= `chunk` triangles become
-    single padded chunks; consecutive small siblings are greedily packed
-    into shared chunks to keep utilization >= ~50%. The tri-level tree is
-    the SAH source (reference two-stage build:
-    /root/reference/src/runtime/bvh/NArityBvh.h), the chunk cut is the
-    TPU-native layout decision.
-    """
-    n_nodes = b.child.shape[0]
-    W = b.child.shape[1]
-
-    # per-node contiguous (start, count) ranges, children have larger ids
-    start = np.zeros(n_nodes, np.int64)
-    count = np.zeros(n_nodes, np.int64)
-    for i in range(n_nodes - 1, -1, -1):
-        s, e = np.iinfo(np.int64).max, -1
-        for j in range(W):
-            c = int(b.child[i, j])
-            if c == 0:
-                continue
-            if c < 0:
-                ls, lc = decode_leaf(c)
-                cs, ce = ls, ls + lc
-            else:
-                cs, ce = start[c], start[c] + count[c]
-            s, e = min(s, cs), max(e, ce)
-        start[i], count[i] = (0, 0) if e < 0 else (s, e - s)
-
-    out_nodes: list = []
-    prim_order: list = []
-    n_tris = len(b.prim_order)
-    old2new = np.full(n_tris, -1, np.int64)
-
-    def emit_chunk_range(lo: int, hi: int) -> int:
-        """Append soup range [lo, hi) padded to whole chunks; returns the
-        leaf code."""
-        start_chunk = len(prim_order) // chunk
-        old2new[lo:hi] = np.arange(len(prim_order),
-                                   len(prim_order) + (hi - lo))
-        prim_order.extend(b.prim_order[lo:hi].tolist())
-        pad = (-(hi - lo)) % chunk
-        prim_order.extend([-1] * pad)
-        n_ch = (hi - lo + pad) // chunk
-        assert 1 <= n_ch <= MAX_LEAF_CHUNKS
-        return -((start_chunk << 4 | n_ch) + 1)
-
-    def child_range(i: int, j: int):
-        c = int(b.child[i, j])
-        if c == 0:
-            return None
-        if c < 0:
-            ls, lc = decode_leaf(c)
-            return (ls, ls + lc, c)
-        return (int(start[c]), int(start[c] + count[c]), c)
-
-    def emit(i: int) -> int:
-        """Emit kept (big) node i; children <= chunk tris become packed
-        chunk leaves."""
-        my_id = len(out_nodes)
-        out_nodes.append(None)
-        entries = []  # (bb_min3, bb_max3, code)
-        j = 0
-        ranges = [child_range(i, j) for j in range(W)]
-        while j < W and ranges[j] is not None:
-            lo, hi, c = ranges[j]
-            if hi - lo > chunk:
-                cid = emit(c)
-                entries.append((_node_child_bb(b, i, j), cid))
-                j += 1
-            else:
-                # pack consecutive small siblings into shared chunks
-                k = j
-                mn = np.array([np.inf] * 3, np.float32)
-                mx = np.array([-np.inf] * 3, np.float32)
-                end = hi
-                while k < W and ranges[k] is not None:
-                    lo_k, hi_k, _ = ranges[k]
-                    if hi_k - lo > chunk * MAX_LEAF_CHUNKS or \
-                       (k > j and hi_k - lo > chunk):
-                        break
-                    bbm, bbx = _node_child_bb_arrays(b, i, k)
-                    mn = np.minimum(mn, bbm)
-                    mx = np.maximum(mx, bbx)
-                    end = hi_k
-                    k += 1
-                code = emit_chunk_range(lo, end)
-                entries.append(((mn, mx), code))
-                j = k
-        out_nodes[my_id] = entries
-        return my_id
-
-    def _node_child_bb(bb: BVH8, i: int, j: int):
-        return _node_child_bb_arrays(bb, i, j)
-
-    def _node_child_bb_arrays(bb: BVH8, i: int, j: int):
-        mn = np.array([bb.cmin_x[i, j], bb.cmin_y[i, j], bb.cmin_z[i, j]],
-                      np.float32)
-        mx = np.array([bb.cmax_x[i, j], bb.cmax_y[i, j], bb.cmax_z[i, j]],
-                      np.float32)
-        return mn, mx
-
-    total = int(count[0]) if n_nodes > 0 else 0
-    if total <= chunk:
-        # whole scene in one chunk under a synthetic root
-        code = emit_chunk_range(0, total)
-        mn = np.array([b.cmin_x[0].min(), b.cmin_y[0].min(),
-                       b.cmin_z[0].min()], np.float32)
-        mx = np.array([b.cmax_x[0].max(), b.cmax_y[0].max(),
-                       b.cmax_z[0].max()], np.float32)
-        out_nodes.append([((mn, mx), code)])
-    else:
-        emit(0)
-
-    n_out = len(out_nodes)
-    cmin = np.full((n_out, W, 3), np.inf, np.float32)
-    cmax = np.full((n_out, W, 3), -np.inf, np.float32)
-    child = np.zeros((n_out, W), np.int32)
-    for i, entries in enumerate(out_nodes):
-        for j, ((mn, mx), code) in enumerate(entries):
-            cmin[i, j] = mn
-            cmax[i, j] = mx
-            child[i, j] = code
-    return ChunkBVH(cmin[..., 0], cmin[..., 1], cmin[..., 2],
-                    cmax[..., 0], cmax[..., 1], cmax[..., 2],
-                    child, np.asarray(prim_order, np.int64).astype(np.int32),
-                    old2new.astype(np.int32))
-
-
-def remap_bvh8_leaves(b: BVH8, old2new: np.ndarray) -> BVH8:
-    """Rewrite a tri-leaf BVH8's leaf offsets from its own soup order to
-    the chunk-padded order (ChunkBVH.old2new). Leaves never straddle
-    padding (padding only lands between whole subtree ranges)."""
-    child = b.child.copy()
-    neg = child < 0
-    lv = -(child[neg]) - 1
-    start = lv >> 4
-    cnt = lv & 15
-    child[neg] = -(((old2new[start].astype(np.int64) << 4) | cnt) + 1) \
-        .astype(np.int32)
-    return b._replace(child=child)

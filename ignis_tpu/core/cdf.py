@@ -1,10 +1,10 @@
 """1D / 2D discrete CDF construction and sampling.
 
-TPU-facing analog of the reference CDF library
+Wavefront analog of the reference CDF library
 (/root/reference/src/artic/core/cdf.art) used for environment-map importance
 sampling, mesh area sampling and light selection. Construction happens
 host-side (numpy-friendly jnp); sampling runs inside jit using
-jnp.searchsorted (log-n gathers on VPU).
+jnp.searchsorted (log-n gathers).
 
 Layout convention matches the reference: a 1D CDF over n bins is an array of
 n entries cdf[i] = sum(w[0..i]) / total, so cdf[n-1] == 1. Sampling draws

@@ -5,11 +5,11 @@ Mirrors the *structure* of the reference RNG
 (sample, iter, frame, x, y, user_seed) feeding a small counter PRNG), giving
 deterministic, order-independent streams per pixel sample. The actual
 generator here is PCG-RXS-M-XS-32: one uint32 of state per ray, a handful of
-integer VPU ops per draw — far cheaper than threefry on TPU and adequate
-for Monte Carlo rendering.
+integer ops per draw — far cheaper than threefry and adequate for Monte
+Carlo rendering.
 
 All functions are elementwise over arbitrarily-shaped uint32 state arrays, so
-the whole wavefront advances its RNG in one fused VPU pass.
+the whole wavefront advances its RNG in one fused elementwise pass.
 """
 from __future__ import annotations
 
@@ -18,9 +18,8 @@ import jax.numpy as jnp
 U32 = jnp.uint32
 
 # Python ints, NOT jnp scalars: module-level device arrays become
-# jit-captured buffers, which cost a full host round-trip per call on
-# remote-attached TPU backends. Weak-typed int literals fold into the
-# uint32 ops for free.
+# jit-captured constants. Weak-typed int literals fold into the uint32 ops
+# for free.
 _FNV_OFFSET = 0x811C9DC5
 _FNV_PRIME = 0x01000193
 

@@ -1,8 +1,8 @@
-"""SoA 3-vector / color math for TPU.
+"""SoA 3-vector / color math.
 
 Vectors are stored as structs-of-arrays: three (or four) equally-shaped float32
-arrays. This keeps the vectorized dimension on the TPU lane axis instead of a
-trailing size-3 dimension (which XLA would pad to 128 lanes).
+arrays. This keeps the vectorized dimension on the ray axis instead of a
+trailing size-3 dimension, so every component is one contiguous array.
 
 Mirrors the semantics of the reference's vector library
 (/root/reference/src/artic/core/vector.art, color.art) with an idiomatic

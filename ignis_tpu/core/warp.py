@@ -11,8 +11,8 @@ import jax.numpy as jnp
 from .vec import Vec2, Vec3, safe_div
 
 # Python floats (f32-rounded), NOT jnp scalars: module-level device
-# arrays become jit-captured buffers (host round-trip per call on
-# remote-attached TPUs). float(np.float32(x)) keeps f32 precision.
+# arrays become jit-captured constants. float(np.float32(x)) keeps f32
+# precision.
 import numpy as _np
 PI = float(_np.float32(_np.pi))
 TWO_PI = float(_np.float32(2.0 * _np.pi))
@@ -77,7 +77,7 @@ def sample_uniform_hemisphere(u, v):
 
 
 def cosine_power_hemisphere_pdf(c, k):
-    # eps floor: pow(0, 0) is NaN on TPU
+    # eps floor: keeps pow off 0**0 and its infinite gradient
     return jnp.power(jnp.maximum(c, 1e-6), k) * (k + 1.0) * INV_2PI
 
 

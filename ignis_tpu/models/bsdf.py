@@ -2,9 +2,9 @@
 
 The reference JIT-compiles one specialized hit-shader per material
 (/root/reference/src/runtime/shader/HitShader.cpp:16) and sorts rays by
-material. On TPU we instead evaluate every BSDF *kind* present in the scene
-for every lane with VPU masks and select — uniform control flow, no sorting,
-no divergence; XLA fuses the whole dispatch into one kernel.
+material. Here every BSDF *kind* present in the scene is evaluated for
+every lane with masks and select — uniform control flow, no sorting, no
+divergence; XLA fuses the whole dispatch into one kernel.
 
 Semantics mirror /root/reference/src/artic/bsdf/*.art:
   - eval(in_dir, out_dir) includes the cosine term; delta lobes eval to 0
@@ -158,7 +158,7 @@ def _diffuse_eval(mat: MatParams, wi: Vec3, wo: Vec3) -> Color:
 def _phong_eval(mat: MatParams, wi: Vec3, wo: Vec3) -> Color:
     cos_i = jnp.maximum(wi.z, 0.0)
     r = Vec3(-wo.x, -wo.y, wo.z)  # reflect about +z
-    # eps floor: pow(0, 0) is NaN on TPU and grads of pow(0, k) blow up
+    # eps floor: keeps pow off 0**0 and the infinite grads of pow(0, k)
     c = jnp.maximum(dot(r, wi), 1e-6)
     k = mat.p0
     return mat.base * (jnp.power(c, k) * (k + 2.0) * (0.5 * INV_PI) * cos_i)

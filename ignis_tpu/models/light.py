@@ -187,45 +187,19 @@ def sample_area_point(scene: SceneData, lp: LightParams, u0, u1):
     n = scene.lights.area_cdf.shape[0]
     pos = jnp.clip(jnp.searchsorted(scene.lights.area_cdf, key, side="right"),
                    0, max(n - 1, 0))
-    # One batched one-hot gather for (cdf[pos-1], cdf[pos], tri_id), then a
-    # second one for the sampled triangle's 9 vertex columns — XLA's 1D
-    # gather costs ~2 ms/262k lanes on TPU; these two MXU gathers are ~1 ms
-    # total (was the single hottest non-kernel cost of area-light scenes).
     from ..ops.gather import gather_cols
     cdf = scene.lights.area_cdf
     cdf_prev = jnp.concatenate([jnp.zeros((1,), cdf.dtype), cdf[:-1]])
-    # The one-hot matmul gather reconstructs f32 columns only to ~8e-6 abs
-    # (bf16 hi/lo), which distorts narrow CDF segments of many-triangle
-    # emitters. Every column therefore goes through an EXACT <=12-bit-int
-    # encoding (integers < 2^9 are exact in bf16, so the gather's hi/lo
-    # split reconstructs 12-bit ints exactly): tri ids as two 12-bit
-    # halves, and each CDF value as (own-row delta, 24-bit fixed-point
-    # fraction within its row), all computed from the f32 table at trace
-    # time. Reconstruction error: 0.5/2^24 ~ 3e-8 absolute in [0,1].
-    at = scene.lights.area_tris
-    FP = 16777215.0  # 2^24 - 1: fits f32's 24-bit mantissa exactly
-    row_of = jnp.ceil(cdf) - 1.0          # entry's own light row
-    row_prev = jnp.ceil(cdf_prev) - 1.0
-    fq = jnp.round((cdf - row_of) * FP)
-    pq = jnp.round((cdf_prev - row_prev) * FP)
-    # drow: cdf_prev's row relative to the entry's own row (<= 0; the
-    # first entry of a row has cdf_prev on the previous row's boundary)
-    drow = row_prev - row_of
-    (fq_hi, fq_lo, pq_hi, pq_lo, drow_g, tri_hi_f, tri_lo_f) = gather_cols(
-        pos, [jnp.floor(fq / 4096.0), fq - jnp.floor(fq / 4096.0) * 4096.0,
-              jnp.floor(pq / 4096.0), pq - jnp.floor(pq / 4096.0) * 4096.0,
-              drow, (at >> 12).astype(jnp.float32),
-              (at & 0xFFF).astype(jnp.float32)])
-    frac = (fq_hi * 4096.0 + fq_lo) / FP
-    frac_prev = (pq_hi * 4096.0 + pq_lo) / FP
-    lo = jnp.where(pos > 0, jnp.clip(drow_g + frac_prev, 0.0, 1.0), 0.0)
-    hi = jnp.clip(frac, 0.0, 1.0)
+    # entries are row + within-row fraction; the segment [lo, hi) of the
+    # chosen entry, relative to its own light row
+    c, cp = cdf[pos], cdf_prev[pos]
+    row = jnp.ceil(c) - 1.0
+    lo = jnp.where(pos > 0, jnp.clip(cp - row, 0.0, 1.0), 0.0)
+    hi = jnp.clip(c - row, 0.0, 1.0)
     seg = hi - lo
     ur = jnp.where(seg > 0, (jnp.clip(u0, 0.0, 0.999999) - lo)
                    / jnp.where(seg > 0, seg, 1.0), 0.0)
-
-    tri = (jnp.round(tri_hi_f).astype(jnp.int32) << 12) \
-        | jnp.round(tri_lo_f).astype(jnp.int32)
+    tri = scene.lights.area_tris[pos]
     (v0x_, v0y_, v0z_, e1x_, e1y_, e1z_, e2x_, e2y_, e2z_) = gather_cols(
         tri, [scene.tris.v0.x, scene.tris.v0.y, scene.tris.v0.z,
               scene.tris.e1.x, scene.tris.e1.y, scene.tris.e1.z,

@@ -19,10 +19,8 @@ _TRIED = False
 
 
 def _cache_dir() -> Path:
-    d = Path(os.environ.get("IGNIS_TPU_CACHE",
-                            Path.home() / ".cache" / "ignis_tpu"))
-    d.mkdir(parents=True, exist_ok=True)
-    return d
+    from ..utils.cache import checkout_dir
+    return checkout_dir("native")
 
 
 def get_lib():
@@ -36,7 +34,7 @@ def get_lib():
         tag = hashlib.sha1(src.read_bytes()).hexdigest()[:16]
         so = _cache_dir() / f"ignis_native_{tag}.so"
         if not so.exists():
-            tmp = so.with_suffix(".so.tmp")
+            tmp = so.with_suffix(f".so.{os.getpid()}.tmp")
             subprocess.run(
                 ["g++", "-O3", "-march=native", "-fPIC", "-shared",
                  "-std=c++17", str(src), "-o", str(tmp)],

@@ -1,13 +1,14 @@
-"""Batched BVH8 traversal in JAX.
+"""Batched BVH8 traversal in plain JAX (the portable reference walk).
 
-TPU re-design of the reference's per-ray stack traversal
+Lockstep version of the reference's per-ray stack traversal
 (/root/reference/src/artic/traversal/mapping_cpu.art, stack.art): the whole
-ray wavefront advances in lockstep; each step every live lane pops a node,
+ray wavefront advances together; each step every live lane pops a node,
 slab-tests its 8 children (gathered SoA bounds), pushes inner hits and
 intersects leaf triangle ranges with a static unrolled loop. Lane stacks
 live in one [N, STACK] array with scatter/gather updates. Traversal ends
 when every lane's stack is empty; tmax pruning keeps step counts near the
-per-ray optimum.
+per-ray optimum. On CUDA the renderer runs the per-ray kernel of
+ops/bvh_gpu.py instead; this walk is its reference and the CPU path.
 """
 from __future__ import annotations
 
@@ -33,15 +34,6 @@ class BVHArrays(NamedTuple):
     cmax_y: jnp.ndarray
     cmax_z: jnp.ndarray
     child: jnp.ndarray
-
-
-class SceneAccel(NamedTuple):
-    """Both traversal structures over ONE chunk-padded soup order:
-    `tri` = tri-leaf BVH8 for this module's XLA lockstep walk (CPU/
-    fallback), `chunk` = chunked-leaf BVH for the Pallas TPU kernel
-    (ops/pallas_bvh.py)."""
-    tri: BVHArrays
-    chunk: BVHArrays
 
 
 def intersect_bvh(rays: Rays, soup: TriSoup, bvh: BVHArrays,

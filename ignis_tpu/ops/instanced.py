@@ -7,10 +7,10 @@ src/runtime/bvh/SceneBVHAdapter.h:110-128): N entities sharing one shape
 keep ONE local-space triangle soup (O(1 mesh) memory) instead of N
 world-space copies.
 
-TPU-first shape: there is no per-ray TLAS descent — a lax.scan over
-instances runs the whole coherent ray block through each instance's
-local-space BLAS (the dense chunk-culled sweep / Pallas kernel), with a
-per-instance world-AABB slab test culling blocks of rays up front.
+Wavefront shape: there is no per-ray TLAS descent — a lax.scan over
+instances runs the whole ray block through each instance's local-space
+BLAS (the dense chunk sweep), with a per-instance world-AABB slab test
+culling rays up front.
 Closest hits fold with the usual min-t carry; t is world-invariant
 because local rays use d' = A d unnormalized.
 """

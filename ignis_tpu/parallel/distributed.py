@@ -1,13 +1,16 @@
-"""Multi-host distributed layer (SURVEY.md §2e: the reference is
-single-node — this is new ground, designed for TPU pod slices).
+"""Multi-process layer (SURVEY.md §2e: the reference is single-node).
 
-Model: one Python process per host, `jax.distributed.initialize` forms the
-global runtime, and a single global mesh with one "rays" axis spans every
-chip on every host. Pixel lanes are sharded along it, the scene is
-replicated into each chip's HBM, and a jitted render/train step lets XLA
-insert the collectives — film lane-slices travel nowhere (each process
-reads back only its addressable shards), gradient all-reduce rides ICI
-within a host and DCN across hosts.
+The common deployment is one process driving every card of one host,
+with the cards joined all to all by NVLink; there `initialize()` is a
+no-op and `global_mesh()` is the flat "rays" axis over the host's cards.
+Several processes (one per card, or one per host) join through
+`jax.distributed.initialize` with an explicit coordinator address, and a
+single global mesh with one "rays" axis then spans every card of every
+process. Pixel lanes are sharded along it, the scene is replicated into
+each card's memory, and a jitted render/train step lets XLA insert the
+collectives (NCCL) — film lane-slices travel nowhere (each process reads
+back only its addressable shards); the gradient all-reduce is the only
+cross-card traffic of a train step.
 
 Usage (per process):
 
@@ -17,9 +20,8 @@ Usage (per process):
     film = dist.render_distributed(rt.scene, rt.settings, mesh, it, frame)
     # film: numpy [h, w, 3], identical on every process
 
-Environment (when not running under a TPU pod launcher that provides
-them automatically): IGNIS_COORDINATOR (host:port), IGNIS_NUM_PROCESSES,
-IGNIS_PROCESS_ID.
+Environment (instead of the arguments): IGNIS_COORDINATOR (host:port),
+IGNIS_NUM_PROCESSES, IGNIS_PROCESS_ID.
 """
 from __future__ import annotations
 
@@ -35,9 +37,9 @@ def initialize(coordinator: Optional[str] = None,
     """Form the multi-process JAX runtime. Returns True when a multi-process
     group was initialized, False for the single-process fast path.
 
-    On TPU pods the three arguments are discovered from the launcher
-    environment; elsewhere (CPU/GPU test rigs) pass them or set
-    IGNIS_COORDINATOR / IGNIS_NUM_PROCESSES / IGNIS_PROCESS_ID."""
+    Pass the three arguments or set IGNIS_COORDINATOR /
+    IGNIS_NUM_PROCESSES / IGNIS_PROCESS_ID; with neither, the process
+    stays single (one process drives all of its host's cards)."""
     import jax
 
     coordinator = coordinator or os.environ.get("IGNIS_COORDINATOR")
@@ -47,11 +49,6 @@ def initialize(coordinator: Optional[str] = None,
         process_id = int(os.environ["IGNIS_PROCESS_ID"])
 
     if coordinator is None and num_processes is None:
-        # TPU pod: jax.distributed.initialize() self-discovers; single
-        # process otherwise. Only auto-call on real multi-host TPU.
-        if os.environ.get("TPU_WORKER_HOSTNAMES"):
-            jax.distributed.initialize()
-            return jax.process_count() > 1
         return False
     jax.distributed.initialize(coordinator_address=coordinator,
                                num_processes=num_processes,
@@ -72,7 +69,7 @@ def render_distributed(scene, settings, mesh, iteration, frame):
     Every process calls this with the SAME (replicated) scene; the jitted
     program is identical on all processes (SPMD). The film is constrained
     to a replicated output sharding, so XLA inserts the cross-host
-    all-gather (DCN) and each process reads its local full copy."""
+    all-gather and each process reads its local full copy."""
     import jax
     import jax.numpy as jnp
 
@@ -90,8 +87,8 @@ def train_step_distributed(scene, settings, target, iteration, frame, lr,
                            mesh):
     """One differentiable-render optimization step over the global mesh.
 
-    Loss/grad math is sharded over rays; material-gradient all-reduce is
-    inserted by XLA (ICI within host, DCN across hosts). Returns
+    Loss/grad math is sharded over rays; the material-gradient
+    all-reduce is inserted by XLA. Returns
     (loss: float, new_scene) with loss identical on every process."""
     import jax.numpy as jnp
 

@@ -1,9 +1,10 @@
 """Multi-chip scaling: shard the ray wavefront over a device mesh.
 
 The reference is single-device (SURVEY.md §2e); this module is the new
-ground: data-parallel rays/pixels over ICI with the scene replicated in each
-chip's HBM, film reduced with psum, and parameter gradients (differentiable
-rendering) all-reduced by XLA from the same sharding annotations.
+ground: data-parallel rays/pixels over the cards of a host with the scene
+replicated in each card's memory, film gathered, and parameter gradients
+(differentiable rendering) all-reduced by XLA from the same sharding
+annotations.
 
 Design: one mesh axis "rays". Pixel lanes are sharded along it; SceneData is
 replicated. Inside jit, XLA inserts the collectives; the film segment each
@@ -48,29 +49,21 @@ def _replicated(mesh: Mesh):
     return NamedSharding(mesh, P())
 
 
-@functools.partial(jax.jit, static_argnames=("settings", "mesh"))
-def render_iteration_sharded_compact(scene: SceneData,
-                                     settings: RenderSettings,
-                                     iteration, frame, mesh: Mesh):
-    """Compacting-cascade render sharded with shard_map: lanes split over
-    the "rays" axis, scene replicated, and EACH CHIP runs the full
-    shrinking-bucket cascade on its own lane slice (compaction is local —
-    zero collectives until the final film all-gather). This is the
-    multi-chip production path for the path/volpath techniques; the
-    per-shard program is identical to the single-device cascade."""
+def _sharded_cascade(scene: SceneData, settings: RenderSettings, iteration,
+                     frame, mesh: Mesh, lane_fn):
+    """[h, w, 3] mean radiance from `lane_fn(scene, x, y, it, fr) -> (r, g,
+    b)` run under shard_map on each card's slice of the tiled lanes
+    (scene replicated, compaction local to each card: zero collectives
+    until the film all-gather)."""
     from ..render.session import _tiled_lane_coords
-    from ..techniques.path import cascade_lane_fn
 
     w, h = settings.width, settings.height
-    n = h * w
     nd = int(np.prod(mesh.devices.shape))
-    assert n % nd == 0, f"film lanes {n} not divisible by {nd} devices"
+    assert (h * w) % nd == 0, f"film lanes {h * w} not divisible by {nd}"
     x, y = _tiled_lane_coords(w, h)
-    fn = cascade_lane_fn(settings, n // nd)
 
     def worker(scene_, x_, y_, it_, fr_):
-        r, g, b = fn(scene_, x_, y_, it_, fr_)
-        return jnp.stack([r, g, b], axis=-1)
+        return jnp.stack(lane_fn(scene_, x_, y_, it_, fr_), axis=-1)
 
     # check_vma=False: the cascade's scan carries mix replicated-initialized
     # accumulators with per-lane (varying) updates, which the replication
@@ -80,15 +73,27 @@ def render_iteration_sharded_compact(scene: SceneData,
                      out_specs=P("rays"))(
         scene, jnp.asarray(x), jnp.asarray(y),
         jnp.asarray(iteration, jnp.uint32), jnp.asarray(frame, jnp.uint32))
-    inv = 1.0 / settings.spi
     TILE = 32
     if (w % TILE == 0) and (h % TILE == 0):
-        def untile(a):
-            return a.reshape(h // TILE, w // TILE, TILE, TILE, 3) \
-                .transpose(0, 2, 1, 3, 4).reshape(h, w, 3)
-    else:
-        untile = lambda a: a.reshape(h, w, 3)
-    img = untile(out) * inv
+        out = out.reshape(h // TILE, w // TILE, TILE, TILE, 3) \
+            .transpose(0, 2, 1, 3, 4)
+    return out.reshape(h, w, 3) * (1.0 / settings.spi)
+
+
+@functools.partial(jax.jit, static_argnames=("settings", "mesh"))
+def render_iteration_sharded_compact(scene: SceneData,
+                                     settings: RenderSettings,
+                                     iteration, frame, mesh: Mesh):
+    """Compacting-cascade render sharded with shard_map: lanes split over
+    the "rays" axis, scene replicated, and EACH CARD runs the full
+    shrinking-bucket cascade on its own lane slice. This is the
+    multi-card production path for the path/volpath techniques; the
+    per-shard program is identical to the single-device cascade."""
+    from ..techniques.path import cascade_lane_fn
+
+    n = settings.width * settings.height
+    fn = cascade_lane_fn(settings, n // int(np.prod(mesh.devices.shape)))
+    img = _sharded_cascade(scene, settings, iteration, frame, mesh, fn)
     return jax.lax.with_sharding_constraint(img, _replicated(mesh))
 
 
@@ -128,14 +133,19 @@ def render_iteration_sharded(scene: SceneData, settings: RenderSettings,
     inv = 1.0 / settings.spi
     img = jnp.stack([a.reshape(h, w) for a in acc], axis=-1)
     # replicate the film: each process/device ends with a full local copy
-    # (XLA inserts the lane all-gather — ICI in-host, DCN across hosts)
+    # (XLA inserts the lane all-gather)
     return jax.lax.with_sharding_constraint(img * inv, _replicated(mesh))
 
 
 def loss_fn(diff_materials, scene: SceneData, settings: RenderSettings,
-            target, iteration, frame):
+            target, iteration, frame, mesh: Optional[Mesh] = None):
     """L2 image loss wrt differentiable material parameters (inverse
-    rendering / gradient path for the BASELINE north star)."""
+    rendering / gradient path for the BASELINE north star).
+
+    With `mesh`, the path technique's differentiable cascade runs under
+    shard_map, one lane slice per card. (render_iteration inside a jit
+    over a mesh makes its lane coordinates replicated, so GSPMD would run
+    every lane on every card.)"""
     scene = scene._replace(materials=scene.materials._replace(
         base=diff_materials["base"]))
     import dataclasses
@@ -147,7 +157,22 @@ def loss_fn(diff_materials, scene: SceneData, settings: RenderSettings,
     # through the rematerialized lax.scan variant instead.
     if not settings.remat:
         settings = dataclasses.replace(settings, remat=True)
-    img = render_iteration(scene, settings, iteration, frame)
+    if mesh is None:
+        img = render_iteration(scene, settings, iteration, frame)
+    else:
+        if settings.technique not in ("path", "pt"):
+            raise NotImplementedError(
+                "sharded training runs the path technique only, got "
+                f"{settings.technique!r}")
+        from ..models.texture import make_texture_evaluator
+        from ..techniques.path import path_trace_cascade_diff
+
+        def lanes(sc, x, y, it, fr):
+            ev = make_texture_evaluator(settings.texture_descs, sc.textures)
+            return tuple(path_trace_cascade_diff(sc, settings, x, y, it, fr,
+                                                 ev))
+        img = _sharded_cascade(scene, settings, iteration, frame, mesh,
+                               lanes)
     return jnp.mean((img - target) ** 2)
 
 
@@ -163,7 +188,7 @@ def train_step_sharded(scene: SceneData, settings: RenderSettings,
     target = jax.lax.with_sharding_constraint(target, _replicated(mesh))
     params = {"base": scene.materials.base}
     loss, grads = jax.value_and_grad(loss_fn)(params, scene, settings, target,
-                                              iteration, frame)
+                                              iteration, frame, mesh)
     new_base = jax.tree_util.tree_map(lambda p, g: p - lr * g,
                                       params["base"], grads["base"])
     new_scene = scene._replace(materials=scene.materials._replace(base=new_base))

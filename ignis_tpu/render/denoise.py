@@ -2,7 +2,7 @@
 
 The reference wires Intel Open Image Denoise behind Runtime (extra/OIDN.h,
 fed by the `infobuffer` Normals/Albedo AOVs). A neural denoiser is not
-portable here, so this is a TPU-native classical equivalent with the same
+portable here, so this is a classical equivalent with the same
 API shape and guide inputs: an edge-avoiding à-trous wavelet filter
 (Dammertz et al. 2010) jointly guided by color, normal, albedo and depth.
 Runs fully in JAX (stacked shifted images, no gather loops) so it executes
@@ -89,7 +89,9 @@ def _estimate_noise(color):
     """Global MC-noise scale from the median absolute high-pass response
     (Immerkaer-style); relative to local luminance so the threshold tracks
     the signal-proportional variance of path tracing."""
-    lum = color @ jnp.asarray([0.2126, 0.7152, 0.0722])
+    # an elementwise sum: a float32 matmul may run in TF32 on a GPU
+    lum = (0.2126 * color[..., 0] + 0.7152 * color[..., 1]
+           + 0.0722 * color[..., 2])
     lap = (4.0 * lum
            - _shift2d(lum[..., None], 0, 1)[..., 0]
            - _shift2d(lum[..., None], 0, -1)[..., 0]

@@ -28,6 +28,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+
+def _dot(a, b):
+    """Float32 dot product (a GPU may otherwise contract in TF32)."""
+    return jnp.dot(a, b, precision=jax.lax.Precision.HIGHEST)
+
 WHITE_EFFICIENCY = 179.0  # lm/W, illuminant E (reference core/color.art:78)
 
 
@@ -149,13 +154,13 @@ def _glare_reductions(img, cam_dir, cam_up, w: int, h: int, fov_deg: float,
     gdir = _pixel_dirs(None, cam_dir, cam_up, fov_deg, w, h,
                        jnp.reshape(gxi + 0.5, (1, 1)),
                        jnp.reshape(gyi + 0.5, (1, 1)))[0, 0]
-    vangle = jnp.arccos(jnp.clip(jnp.dot(vv, gdir), -1, 1)) - jnp.pi / 2
-    hangle = jnp.pi / 2 - jnp.arccos(jnp.clip(jnp.dot(hv, gdir), -1, 1))
-    t = jnp.dot(d, gdir)
+    vangle = jnp.arccos(jnp.clip(_dot(vv, gdir), -1, 1)) - jnp.pi / 2
+    hangle = jnp.pi / 2 - jnp.arccos(jnp.clip(_dot(hv, gdir), -1, 1))
+    t = _dot(d, gdir)
     sigma = jnp.degrees(jnp.abs(jnp.arccos(jnp.clip(t, -1, 1))))
     hvn = gdir / jnp.maximum(t, 1e-6) - gdir
     hvn = hvn / jnp.maximum(jnp.linalg.norm(hvn), 1e-20)
-    tau = jnp.degrees(jnp.arccos(jnp.clip(jnp.dot(vv, hvn), -1, 1)))
+    tau = jnp.degrees(jnp.arccos(jnp.clip(_dot(vv, hvn), -1, 1)))
     phi = jnp.maximum(vangle, 1e-5)
     theta = jnp.maximum(hangle, 1e-5)
     # Guth model (the reference's phi<0 Iwata branch is dead code after its

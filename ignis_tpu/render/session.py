@@ -18,17 +18,26 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-# Persistent compilation cache — the analog of the reference's on-disk JIT
-# object cache (src/device/Compiler.cpp:35). First compile of a big scan
-# program is tens of seconds; subsequent processes hit the cache.
-try:
-    _cache_dir = os.environ.get(
-        "IGNIS_TPU_CACHE", os.path.expanduser("~/.cache/ignis_tpu/jax"))
-    os.makedirs(_cache_dir, exist_ok=True)
-    jax.config.update("jax_compilation_cache_dir", _cache_dir)
+
+
+def configure_compile_cache() -> Optional[Path]:
+    """Persistent compilation cache — the analog of the reference's
+    on-disk JIT object cache (src/device/Compiler.cpp:35). Where
+    JAX_COMPILATION_CACHE_DIR is set, JAX keeps the cache there and this
+    sets nothing; otherwise the cache is the fixed <checkout>/.jax_cache
+    (a fixed path: the path is part of the cache key). Returns the
+    directory this function chose, or None."""
+    if os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        return None
+    from ..utils.cache import CHECKOUT
+    path = CHECKOUT / ".jax_cache"
+    path.mkdir(exist_ok=True)
+    jax.config.update("jax_compilation_cache_dir", str(path))
     jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
-except Exception:  # pragma: no cover - cache is best-effort
-    pass
+    return path
+
+
+configure_compile_cache()
 
 from ..core import rng as rnglib
 from ..models import camera as cameralib
@@ -147,14 +156,14 @@ def _compiled_aept_sample(settings: RenderSettings):
     return jax.jit(fn)
 
 
-# Below this film size the compacting orchestrator's per-round host syncs
-# cost more than the dead-lane tail it removes.
+# Below this film size the compacting cascade is not used (not tuned on
+# the GPU).
 _COMPACTION_MIN_LANES = 2 * 4096
 
 
 def _tiled_lane_coords(w: int, h: int):
-    """Lane layout: 32x32 pixel tiles so each 1024-lane Pallas block covers
-    a compact frustum (block chunk-culling fires); returns flat x, y."""
+    """Lane layout: 32x32 pixel tiles, so neighbouring lanes (one block of
+    the traversal kernel) trace neighbouring pixels; returns flat x, y."""
     x = jnp.broadcast_to(jnp.arange(w, dtype=jnp.int32)[None, :],
                          (h, w)).reshape(-1)
     y = jnp.broadcast_to(jnp.arange(h, dtype=jnp.int32)[:, None],
@@ -225,7 +234,7 @@ def _render_iteration_impl(scene: SceneData, settings: RenderSettings,
                           color.b.reshape(h, w)], axis=-1) * inv
 
     if settings.technique in ("path", "pt") and settings.remat \
-            and os.environ.get("IGNIS_TPU_DIFF_CASCADE", "1") == "1":
+            and os.environ.get("IGNIS_DIFF_CASCADE", "1") == "1":
         # Differentiable compacting cascade: the gradient path gets the
         # same occupancy economics as the forward cascade (scan + cond-skip
         # instead of while_loop, techniques/path.py path_trace_cascade_diff)
@@ -248,9 +257,8 @@ def _render_iteration_impl(scene: SceneData, settings: RenderSettings,
         # Persistent-lane progressive path: all spi samples in one
         # regenerating wavefront (keeps lanes busy through the RR tail).
         # Lanes are laid out in 32x32 pixel tiles (the reference's CPU tile
-        # parallelism, mapping_cpu.art:731) so each 1024-lane Pallas block
-        # covers a compact frustum and chunk-AABB culling can fire; the
-        # inverse is a pure reshape/transpose.
+        # parallelism, mapping_cpu.art:731) so neighbouring lanes trace
+        # neighbouring pixels; the inverse is a pure reshape/transpose.
         from ..techniques.path import path_trace_progressive
         TILE = 32
         tiled = (w % TILE == 0) and (h % TILE == 0)
@@ -464,7 +472,7 @@ class Runtime:
                 img = self._step_aept()
             elif (self.settings.technique in ("path", "pt", "volpath")
                   and not self.settings.remat
-                  and os.environ.get("IGNIS_TPU_COMPACTION", "1") == "1"
+                  and os.environ.get("IGNIS_COMPACTION", "1") == "1"
                   and self.settings.width * self.settings.height
                   >= _COMPACTION_MIN_LANES):
                 img = _render_iteration_compacting(
@@ -558,7 +566,7 @@ class Runtime:
         metadata = {
             "igCameraType": self.settings.camera_type,
             "igTechniqueType": self.settings.technique,
-            "igTarget": "tpu",
+            "igTarget": jax.devices()[0].platform,
             "igCameraEye": v3(cam.eye),
             "igCameraUp": v3(cam.up),
             "igCameraDir": v3(cam.dir),
@@ -698,7 +706,7 @@ class Runtime:
         tmin = rays[:, 6] if rays.shape[1] > 6 else np.zeros(n, np.float32)
         tmax = rays[:, 7] if rays.shape[1] > 7 else np.full(n, 3.0e38, np.float32)
         tmax = np.where(tmax <= 0, 3.0e38, tmax).astype(np.float32)
-        # pad to a power-of-two bucket (>=1024 = one Pallas lane block)
+        # pad to a power-of-two bucket of at least 1024 rays
         n_pad = 1024
         while n_pad < n:
             n_pad *= 2

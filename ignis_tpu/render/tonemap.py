@@ -17,7 +17,7 @@ import jax.numpy as jnp
 import numpy as np
 
 # sRGB <-> XYZ (D65). numpy (not jnp): module-level device arrays become
-# jit-captured buffers, costing a host round-trip per call on remote TPUs.
+# jit-captured constants.
 _RGB2XYZ = np.asarray([[0.4124564, 0.3575761, 0.1804375],
                        [0.2126729, 0.7151522, 0.0721750],
                        [0.0193339, 0.1191920, 0.9503041]], np.float32)
@@ -67,7 +67,9 @@ def tonemap(img, scale=1.0, exposure_factor=1.0, exposure_offset=0.0,
 
     nan -> cyan, inf -> pink, negative -> orange (tonemap.art:25-31)."""
     rgb = img * scale
-    xyz = jnp.einsum("ij,hwj->hwi", _RGB2XYZ, rgb)
+    # HIGHEST: a float32 contraction may otherwise run in TF32 on a GPU
+    xyz = jnp.einsum("ij,hwj->hwi", _RGB2XYZ, rgb,
+                     precision=jax.lax.Precision.HIGHEST)
     s = jnp.maximum(xyz.sum(-1), 1e-20)
     x = xyz[..., 0] / s
     y = xyz[..., 1] / s
@@ -82,7 +84,8 @@ def tonemap(img, scale=1.0, exposure_factor=1.0, exposure_offset=0.0,
     X = nL * x / denom
     Z = nL * (1.0 - x - y) / denom
     new_xyz = jnp.stack([X, nL, Z], axis=-1)
-    color = jnp.einsum("ij,hwj->hwi", _XYZ2RGB, new_xyz)
+    color = jnp.einsum("ij,hwj->hwi", _XYZ2RGB, new_xyz,
+                       precision=jax.lax.Precision.HIGHEST)
 
     if method == 5:  # agx (approximation of the AgX fit)
         color = _agx(color)

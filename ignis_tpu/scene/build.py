@@ -22,36 +22,11 @@ from ..models.bsdf import BsdfKind, ROUGH_FLAG, THIN_FLAG
 from ..models.light import LightKind
 from ..ops.intersect import TRI_CHUNK, SphereSoup, TriSoup
 
-# Spatial clustering granularity for the dense sweep (= Pallas kernel chunk,
-# ops/pallas_isect.py TRI_CHUNK); TRI_CHUNK above (256) is the pad multiple.
-PALLAS_CHUNK = 128
+# Triangle count from which a scene walks a BVH8 instead of the dense
+# chunk sweep. Not measured on the GPU: the value is carried over, and
+# which route is cheaper below it is an open question (PERF.md).
+BVH_THRESHOLD = 512
 
-
-def _chunk_cluster_perm(v0: np.ndarray, e1: np.ndarray, e2: np.ndarray,
-                        chunk: int) -> np.ndarray:
-    """Permutation grouping triangles into spatially tight, chunk-aligned
-    clusters (recursive longest-axis median split with splits rounded to
-    chunk multiples). Keeps each [chunk]-wide intersection tile's AABB small
-    so block-coherent chunk culling can skip it."""
-    n = v0.shape[0]
-    cent = v0 + (e1 + e2) * (1.0 / 3.0)
-    out: List[np.ndarray] = []
-
-    def rec(ids: np.ndarray):
-        if len(ids) <= chunk:
-            out.append(ids)
-            return
-        c = cent[ids]
-        ax = int(np.argmax(c.max(axis=0) - c.min(axis=0)))
-        order = ids[np.argsort(c[:, ax], kind="stable")]
-        half = len(ids) // 2
-        split = int(round(half / chunk)) * chunk
-        split = min(max(chunk, split), (len(ids) - 1) // chunk * chunk)
-        rec(order[:split])
-        rec(order[split:])
-
-    rec(np.arange(n, dtype=np.int32))
-    return np.concatenate(out)
 from ..scenedata import (CameraData, Entities, EnvMap, Lights, Materials, Media,
                          RenderSettings, SceneData, SphereAttributes,
                          TriAttributes)
@@ -1004,11 +979,8 @@ def build_scene(scene: Scene, overrides: Optional[dict] = None) -> BuiltScene:
             _append_mesh(lm, 0, True, lv0, le1, le2, ln, luv, [], [], [],
                          {}, "__inst__")
             ntl = len(lv0)
-            # Pad to a common multiple of the Pallas chunk (128) and the
-            # XLA scan chunk (TRI_CHUNK=256) so the dense sweep works on
-            # every backend; 128-only padding gave the CPU path zero
-            # whole chunks.
-            padl = (-ntl) % max(TRI_CHUNK, PALLAS_CHUNK)
+            # pad to whole TRI_CHUNK chunks for the dense sweep
+            padl = (-ntl) % TRI_CHUNK
 
             def pad3l(lst):
                 a = np.asarray(lst, np.float32).reshape(-1, 3)
@@ -1256,57 +1228,35 @@ def build_scene(scene: Scene, overrides: Optional[dict] = None) -> BuiltScene:
     n_tris = len(tri_v0)
 
     def _reorder_soup(perm):
-        # Reorders every per-triangle column and remaps area-light tri
-        # ids. `perm` maps new position -> original index; -1 entries
-        # insert degenerate padding rows (chunked-leaf BVH layout,
-        # bvh/builder.py chunkify_bvh8).
+        # Reorders every per-triangle column into BVH leaf order and
+        # remaps area-light tri ids; `perm` maps new position -> original
+        # index.
         nonlocal tri_v0, tri_e1, tri_e2, tri_ent, tri_area, tri_shadow, \
             area_tris
-        pad_mask = perm < 0
-        pi = np.clip(perm, 0, max(len(tri_v0) - 1, 0))
         inv_perm = np.empty(len(tri_v0), dtype=perm.dtype)
-        inv_perm[pi[~pad_mask]] = np.nonzero(~pad_mask)[0]
-
-        def take3(lst):
-            a = np.asarray(lst, np.float32).reshape(-1, 3)[pi]
-            a[pad_mask] = 0.0
-            return a
-
-        tri_v0 = list(take3(tri_v0))
-        tri_e1 = list(take3(tri_e1))
-        tri_e2 = list(take3(tri_e2))
+        inv_perm[perm] = np.arange(len(perm), dtype=perm.dtype)
+        take3 = lambda lst: list(np.asarray(lst, np.float32)
+                                 .reshape(-1, 3)[perm])
+        tri_v0 = take3(tri_v0)
+        tri_e1 = take3(tri_e1)
+        tri_e2 = take3(tri_e2)
         for k in range(3):
-            tri_n[k][:] = list(take3(tri_n[k]))
-            arr2 = np.asarray(tri_uv[k], np.float32).reshape(-1, 2)[pi]
-            arr2[pad_mask] = 0.0
-            tri_uv[k][:] = list(arr2)
-        ent = np.asarray(tri_ent, np.int32)[pi]
-        ent[pad_mask] = -1
-        tri_ent = list(ent)
-        ar = np.asarray(tri_area, np.float32)[pi]
-        ar[pad_mask] = 0.0
-        tri_area = list(ar)
-        sh = np.asarray(tri_shadow, bool)[pi]
-        sh[pad_mask] = False
-        tri_shadow = list(sh)
+            tri_n[k][:] = take3(tri_n[k])
+            tri_uv[k][:] = list(np.asarray(tri_uv[k], np.float32)
+                                .reshape(-1, 2)[perm])
+        tri_ent = list(np.asarray(tri_ent, np.int32)[perm])
+        tri_area = list(np.asarray(tri_area, np.float32)[perm])
+        tri_shadow = list(np.asarray(tri_shadow, bool)[perm])
         area_tris = [int(inv_perm[i]) for i in area_tris]
 
     # BVH for non-tiny scenes: one binned-SAH tri-leaf BVH8 (C++ builder
-    # when available), from which two traversal structures are derived on
-    # ONE padded soup order: the chunked-leaf BVH for the Pallas TPU
-    # kernel (ops/pallas_bvh.py) and the remapped tri-leaf BVH8 for the
-    # XLA lockstep fallback (ops/bvh.py). Below the threshold the dense
-    # chunk-culled sweep (ops/pallas_isect.py) is already a 1-level BVH.
+    # when available) over the soup in its leaf order. Below the
+    # threshold the soup is swept densely (ops/intersect.py).
     bvh_arrays = None
-    # Measured on TPU v5e (diamond_scene, 1024 tris): the Pallas BVH walk
-    # beats the chunk-culled dense sweep from ~512 tris up (trace 8.1ms vs
-    # 13.8ms per 262k-lane bounce); below that the walk overhead dominates
-    # the 1-4 chunk sweep.
-    BVH_THRESHOLD = int(os.environ.get("IGNIS_TPU_BVH_THRESHOLD", "512"))
     if n_tris >= BVH_THRESHOLD:
-        from ..bvh.builder import build_bvh8, chunkify_bvh8, \
-            remap_bvh8_leaves
+        from ..bvh.builder import build_bvh8
         from ..native import build_bvh8_native
+        from ..ops.bvh import BVHArrays
         _v0 = np.asarray(tri_v0, np.float32).reshape(-1, 3)
         _e1 = np.asarray(tri_e1, np.float32).reshape(-1, 3)
         _e2 = np.asarray(tri_e2, np.float32).reshape(-1, 3)
@@ -1315,49 +1265,15 @@ def build_scene(scene: Scene, overrides: Optional[dict] = None) -> BuiltScene:
             bvh_np = build_bvh8_native(_v0, _e1, _e2)
             if bvh_np is None:
                 bvh_np = build_bvh8(_v0, _e1, _e2)
-            cb = chunkify_bvh8(bvh_np)
-            tri_bvh = remap_bvh8_leaves(bvh_np, cb.old2new)
-            out = {"prim_order": np.asarray(cb.prim_order, np.int64)}
-            for pre, st in (("cb_", cb), ("tb_", tri_bvh)):
-                for fld in ("cmin_x", "cmin_y", "cmin_z",
-                            "cmax_x", "cmax_y", "cmax_z", "child"):
-                    out[pre + fld] = np.asarray(getattr(st, fld))
-            return out
+            return {f: np.asarray(getattr(bvh_np, f))
+                    for f in BVHArrays._fields + ("prim_order",)}
 
         # Built-BVH cache (CacheManager analog): keyed on the exact soup
         from ..utils.cache import cached_arrays
-        z = cached_arrays("bvh8", (_v0, _e1, _e2), _build_all)
-
-        class _B:  # minimal struct views over the (possibly cached) arrays
-            pass
-        cb = _B()
-        tri_bvh = _B()
-        cb.prim_order = z["prim_order"]
-        for pre, st in (("cb_", cb), ("tb_", tri_bvh)):
-            for fld in ("cmin_x", "cmin_y", "cmin_z",
-                        "cmax_x", "cmax_y", "cmax_z", "child"):
-                setattr(st, fld, z[pre + fld])
-        _reorder_soup(cb.prim_order)
-        n_tris = len(tri_v0)
-        from ..ops.bvh import BVHArrays, SceneAccel
-        bvh_arrays = SceneAccel(
-            tri=BVHArrays(*[jnp.asarray(a) for a in (
-                tri_bvh.cmin_x, tri_bvh.cmin_y, tri_bvh.cmin_z,
-                tri_bvh.cmax_x, tri_bvh.cmax_y, tri_bvh.cmax_z,
-                tri_bvh.child)]),
-            chunk=BVHArrays(*[jnp.asarray(a) for a in (
-                cb.cmin_x, cb.cmin_y, cb.cmin_z,
-                cb.cmax_x, cb.cmax_y, cb.cmax_z, cb.child)]))
-    elif n_tris > PALLAS_CHUNK:
-        # Dense-sweep path: cluster the soup so every 128-tri Pallas chunk
-        # is spatially tight — the per-block chunk-AABB culling in
-        # ops/pallas_isect.py only fires when chunk bounds are small.
-        # (The reference gets the same locality for free from its per-shape
-        # BVH leaf order, bvh/TriBVHAdapter.h.)
-        _reorder_soup(_chunk_cluster_perm(
-            np.asarray(tri_v0, np.float32).reshape(-1, 3),
-            np.asarray(tri_e1, np.float32).reshape(-1, 3),
-            np.asarray(tri_e2, np.float32).reshape(-1, 3), PALLAS_CHUNK))
+        z = cached_arrays("bvh8_tri", (_v0, _e1, _e2), _build_all)
+        _reorder_soup(np.asarray(z["prim_order"], np.int64))
+        bvh_arrays = BVHArrays(*[jnp.asarray(z[f])
+                                 for f in BVHArrays._fields])
 
     pad = (-n_tris) % TRI_CHUNK
     if n_tris == 0:
@@ -1631,7 +1547,7 @@ def build_scene(scene: Scene, overrides: Optional[dict] = None) -> BuiltScene:
         has_bump=any(r["bump_kind"] != 0 and r["bump_tex"] >= 0
                      for r in mat_rows),
         transparent_shadows=(
-            os.environ.get("IGNIS_TPU_TRANSPARENT_SHADOWS", "1") == "1"
+            os.environ.get("IGNIS_TRANSPARENT_SHADOWS", "1") == "1"
             and any(
                 r["kind"] in (int(BsdfKind.PASSTHROUGH),
                               int(BsdfKind.RAD_BRTDF),

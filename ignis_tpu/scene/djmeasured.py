@@ -10,7 +10,7 @@ representation into per-theta_i-node dense tables:
 
 The reference inverts the VNDF warp per evaluation (Marginal2D::invert,
 a data-dependent search). Baking moves that inversion to load time; at
-shading time eval/pdf/sample are static gathers — the TPU-native shape.
+shading time eval/pdf/sample are static gathers — the wavefront shape.
 Isotropic files (phi_i count <= 2, the norm for the RGL database) bake a
 single phi_i slice with phi-relative parameterization; anisotropic files
 bake one slice per phi_i node with absolute phi (djmeasured.art:529 only

@@ -5,7 +5,7 @@ Parses the WindowElement XML with IncidentDataStructure TensorTree3/4
 scattering data becomes a python tree, which is then BAKED into a dense
 regular grid over the Shirley-Chiu parameter square(s) at resolution
 2^maxdepth (capped). The reference walks the tree per lane at shading time
-(tensortree.art tt_climb_tree) — a data-dependent loop; on TPU a dense
+(tensortree.art tt_climb_tree) — a data-dependent loop; here a dense
 nearest-cell gather is exact for the same piecewise-constant function as
 long as the bake resolution reaches the deepest leaf.
 """

@@ -1,7 +1,8 @@
 """Progressive photon mapping (PPM).
 
 Mirrors /root/reference/src/artic/technique/photonmapper.art and
-src/runtime/technique/PhotonMappingTechnique.cpp, re-designed for TPU:
+src/runtime/technique/PhotonMappingTechnique.cpp, re-designed as
+wavefronts:
 
 - Light pass: one lane per photon. The reference only bounces *delta*
   materials before depositing (photonmapper.art:206, "handles direct (LDE)

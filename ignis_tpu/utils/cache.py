@@ -12,8 +12,12 @@ to .npz files keyed by a content hash:
 - ``cached_arrays(key_parts, builder)``: hash of raw input buffers ->
   arbitrary named-array dict (used for built BVHs).
 
-Disabled unless IGNIS_TPU_CACHE_DIR is set or ``enable()`` is called —
+Disabled unless IGNIS_CACHE_DIR is set or ``enable()`` is called —
 scene loads must stay deterministic for tests that patch loaders.
+
+``checkout_dir(name)`` is the one place the package keeps generated
+files: a fixed directory under ``<checkout>/.cache`` (listed in
+.gitignore), so nothing is written outside the checkout.
 """
 from __future__ import annotations
 
@@ -26,20 +30,28 @@ import numpy as np
 
 _FORMAT_VERSION = "1"  # bump to invalidate every cached artifact
 _enabled_dir: Optional[Path] = None
+CHECKOUT = Path(__file__).resolve().parents[2]
+
+
+def checkout_dir(name: str) -> Path:
+    """<checkout>/.cache/<name>, created on first use."""
+    d = CHECKOUT / ".cache" / name
+    d.mkdir(parents=True, exist_ok=True)
+    return d
 
 
 def cache_dir() -> Optional[Path]:
     if _enabled_dir is not None:
         return _enabled_dir
-    d = os.environ.get("IGNIS_TPU_CACHE_DIR")
+    d = os.environ.get("IGNIS_CACHE_DIR")
     return Path(d) if d else None
 
 
 def enable(path=None) -> Path:
-    """Turn the cache on for this process (defaults to ~/.cache/ignis_tpu)."""
+    """Turn the cache on for this process (defaults to
+    <checkout>/.cache/assets)."""
     global _enabled_dir
-    _enabled_dir = Path(path) if path else \
-        Path(os.path.expanduser("~/.cache/ignis_tpu"))
+    _enabled_dir = Path(path) if path else checkout_dir("assets")
     _enabled_dir.mkdir(parents=True, exist_ok=True)
     return _enabled_dir
 

@@ -23,8 +23,6 @@ from pathlib import Path
 
 import numpy as np
 
-CACHE = Path(os.environ.get("IGNIS_TPU_ASSET_CACHE",
-                            "/tmp/ignis_tpu_assets"))
 
 
 def make_substitute_env(width: int = 4096, height: int = 2048) -> np.ndarray:
@@ -69,10 +67,14 @@ def make_substitute_env(width: int = 4096, height: int = 2048) -> np.ndarray:
 
 
 def ensure_substitute_env(width: int = 4096, height: int = 2048) -> Path:
-    """Generate (once) and return the cached substitute HDR path."""
-    CACHE.mkdir(parents=True, exist_ok=True)
-    out = CACHE / f"substitute_env_{width}x{height}.exr"
+    """Generate (once) and return the cached substitute HDR path, under
+    <checkout>/.cache/assets. Written to a private name and renamed, so
+    concurrent processes never read a partial file."""
+    from .cache import checkout_dir
+    from .image import save_image
+    out = checkout_dir("assets") / f"substitute_env_{width}x{height}.exr"
     if not out.exists():
-        from .image import save_image
-        save_image(out, make_substitute_env(width, height))
+        tmp = out.with_name(f".{out.stem}.{os.getpid()}.exr")
+        save_image(tmp, make_substitute_env(width, height))
+        os.replace(tmp, out)
     return out

@@ -1,24 +1,29 @@
 """Image IO: EXR / HDR / PNG / JPG read+write.
 
 Parity target: reference Image IO (/root/reference/src/runtime/Image.cpp —
-tinyexr for EXR, stb for LDR/HDR). Here: OpenCV for EXR/HDR/LDR with a
-pure-python uncompressed-EXR fallback writer, gamma handling matching the
-reference (LDR input is srgb-decoded to linear; EXR is linear).
+tinyexr for EXR, stb for LDR/HDR). Here: EXR is read and written by the
+package's own code (utils/exr.py reader, the ZIP scanline writer below);
+OpenCV, when installed, handles the LDR and .hdr formats. Gamma handling
+matches the reference (LDR input is srgb-decoded to linear; EXR is linear).
 """
 from __future__ import annotations
 
-import os
 import struct
 import zlib
 from pathlib import Path
 
 import numpy as np
 
-os.environ.setdefault("OPENCV_IO_ENABLE_OPENEXR", "1")
 
 
-def _cv2():
-    import cv2
+def _cv2(path):
+    try:
+        import cv2
+    except ImportError:
+        raise ImportError(
+            f"{Path(path).suffix or path}: reading or writing this format "
+            "needs OpenCV (cv2), which is not installed; EXR needs nothing "
+            "beyond numpy") from None
     return cv2
 
 
@@ -36,13 +41,12 @@ def load_image(path, linear: bool = False) -> np.ndarray:
     sRGB decode for data images (normal maps etc., ImagePattern 'linear'
     flag)."""
     path = str(path)
-    cv2 = _cv2()
-    img = cv2.imread(path, cv2.IMREAD_UNCHANGED | cv2.IMREAD_ANYDEPTH
-                     | cv2.IMREAD_ANYCOLOR)
-    if img is None and Path(path).suffix.lower() == ".exr":
-        # cv2 rejects multilayer/odd-channel EXRs; use the builtin reader
+    if Path(path).suffix.lower() == ".exr":
         from .exr import load_exr_rgb
         return np.ascontiguousarray(load_exr_rgb(path), np.float32)
+    cv2 = _cv2(path)
+    img = cv2.imread(path, cv2.IMREAD_UNCHANGED | cv2.IMREAD_ANYDEPTH
+                     | cv2.IMREAD_ANYCOLOR)
     if img is None:
         raise IOError(f"Cannot load image {path}")
     if img.ndim == 2:
@@ -67,15 +71,11 @@ def save_image(path, img: np.ndarray):
     path = str(path)
     img = np.asarray(img, np.float32)
     suffix = Path(path).suffix.lower()
-    cv2 = _cv2()
     if suffix == ".exr":
-        try:
-            ok = cv2.imwrite(path, np.ascontiguousarray(img[..., ::-1]))
-        except Exception:  # cv2 5.x raises when built without an EXR writer
-            ok = False
-        if not ok:
-            _write_exr_fallback(path, img)
-    elif suffix == ".hdr":
+        write_exr(path, img)
+        return
+    cv2 = _cv2(path)
+    if suffix == ".hdr":
         cv2.imwrite(path, np.ascontiguousarray(img[..., ::-1]))
     else:
         ldr = (linear_to_srgb(img) * 255.0 + 0.5).astype(np.uint8)
@@ -120,8 +120,8 @@ def write_exr_multilayer(path, layers, metadata=None):
     _write_exr_channels(path, w, h, channels, meta_attrs)
 
 
-def _write_exr_fallback(path, img: np.ndarray):
-    """Minimal scanline ZIP-compressed EXR writer (float32 RGB)."""
+def write_exr(path, img: np.ndarray):
+    """Scanline ZIP-compressed EXR writer (float32 RGB)."""
     h, w, _ = img.shape
     channels = [("B", img[..., 2]), ("G", img[..., 1]), ("R", img[..., 0])]
     _write_exr_channels(path, w, h, channels, b"")
@@ -153,11 +153,9 @@ def _write_exr_channels(path, w, h, channels, extra_attrs):
     # ZIP compression groups 16 scanlines per block
     blocks = []
     for y0 in range(0, h, 16):
-        ys = range(y0, min(y0 + 16, h))
-        raw = b""
-        for y in ys:
-            for _, ch in channels:
-                raw += ch[y].astype("<f4").tobytes()
+        rows = np.stack([np.asarray(ch[y0:y0 + 16], "<f4")
+                         for _, ch in channels], axis=1)   # [y, ch, x]
+        raw = rows.tobytes()
         # EXR zip pre-filter: de-interleave split first, then delta predictor
         # (OpenEXR ImfZip::compress order)
         a = np.frombuffer(raw, np.uint8)

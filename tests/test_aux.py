@@ -166,3 +166,28 @@ def test_checkpoint_resume_bitwise(tmp_path):
     assert rt2.iteration_count == 2
     rt2.step().step()
     np.testing.assert_array_equal(rt2.framebuffer(), want)
+
+
+def test_exr_roundtrip_without_cv2(tmp_path, monkeypatch):
+    """EXR is written and read by the package's own code: with cv2 made
+    unimportable, save_image/load_image round-trip exactly, and an LDR
+    format fails with a clear error."""
+    import sys
+    import numpy as np
+    import pytest
+    from ignis_tpu.utils.image import load_image, save_image
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    img = np.random.default_rng(0).uniform(0, 50, (37, 53, 3)) \
+        .astype(np.float32)
+    save_image(tmp_path / "a.exr", img)
+    np.testing.assert_array_equal(load_image(tmp_path / "a.exr"), img)
+    with pytest.raises(ImportError, match="OpenCV"):
+        save_image(tmp_path / "a.png", img)
+
+
+def test_cli_target_gpu_fails_without_cuda(capsys):
+    """--target gpu exits non-zero where JAX has no CUDA device (the
+    tests run on the CPU), before any scene is loaded."""
+    from ignis_tpu.cli import main
+    assert main(["missing_scene.json", "--target", "gpu"]) == 2
+    assert "no CUDA device" in capsys.readouterr().err

@@ -131,192 +131,10 @@ def test_native_builder_matches_layout():
     assert cover.all()
 
 
-def test_pallas_kernel_matches_scan_interpret():
-    """Pallas intersection kernel (interpret mode) == XLA scan path."""
-    import numpy as np
-    import jax.numpy as jnp
-    from ignis_tpu.core.vec import Vec3
-    from ignis_tpu.ops import intersect as I
-    from ignis_tpu.ops.pallas_isect import intersect_tris_pallas
-    rng = np.random.default_rng(3)
-    T, N = 256, 512
-    v0 = rng.uniform(-3, 3, (T, 3)).astype(np.float32)
-    e1 = rng.uniform(-0.6, 0.6, (T, 3)).astype(np.float32)
-    e2 = rng.uniform(-0.6, 0.6, (T, 3)).astype(np.float32)
-    o = rng.uniform(-4, 4, (N, 3)).astype(np.float32)
-    d = rng.normal(size=(N, 3)).astype(np.float32)
-    d /= np.linalg.norm(d, axis=1, keepdims=True)
-    soup = I.TriSoup(Vec3(*[jnp.asarray(v0[:, i]) for i in range(3)]),
-                     Vec3(*[jnp.asarray(e1[:, i]) for i in range(3)]),
-                     Vec3(*[jnp.asarray(e2[:, i]) for i in range(3)]))
-    rays = I.Rays(Vec3(*[jnp.asarray(o[:, i]) for i in range(3)]),
-                  Vec3(*[jnp.asarray(d[:, i]) for i in range(3)]),
-                  jnp.zeros(N), jnp.full(N, 1e30))
-    h = I.intersect_tris_dense(rays, soup)
-    t, prim, u, v = intersect_tris_pallas(
-        rays.org.x, rays.org.y, rays.org.z,
-        rays.dir.x, rays.dir.y, rays.dir.z, rays.tmin, rays.tmax,
-        soup.v0.x, soup.v0.y, soup.v0.z,
-        soup.e1.x, soup.e1.y, soup.e1.z,
-        soup.e2.x, soup.e2.y, soup.e2.z,
-        jnp.ones(T), interpret=True)
-    assert (np.asarray(prim) == np.asarray(h.prim)).mean() > 0.999
-    hitm = np.asarray(h.prim) >= 0
-    assert np.allclose(np.asarray(t)[hitm], np.asarray(h.t)[hitm], rtol=1e-4)
-
-
-def test_pallas_closest_hit_grad_interpret():
-    """Backward through the Pallas closest-hit VJP (fixed-winner replay,
-    _mt_terms recompute) matches the XLA scan path's gradient."""
-    import numpy as np
-    import jax
-    import jax.numpy as jnp
-    from ignis_tpu.core.vec import Vec3
-    from ignis_tpu.ops import intersect as I
-    from ignis_tpu.ops.pallas_isect import intersect_tris_pallas
-    rng = np.random.default_rng(11)
-    T, N = 256, 256  # T must be a multiple of the scan path's TRI_CHUNK
-    v0 = rng.uniform(-3, 3, (T, 3)).astype(np.float32)
-    e1 = rng.uniform(-0.6, 0.6, (T, 3)).astype(np.float32)
-    e2 = rng.uniform(-0.6, 0.6, (T, 3)).astype(np.float32)
-    o = rng.uniform(-4, 4, (N, 3)).astype(np.float32)
-    d = rng.normal(size=(N, 3)).astype(np.float32)
-    d /= np.linalg.norm(d, axis=1, keepdims=True)
-    oxyz = [jnp.asarray(o[:, i]) for i in range(3)]
-    dxyz = [jnp.asarray(d[:, i]) for i in range(3)]
-    tri = [jnp.asarray(a[:, i]) for a in (v0, e1, e2) for i in range(3)]
-
-    def loss_pallas(v0x):
-        t, prim, u, v = intersect_tris_pallas(
-            *oxyz, *dxyz, jnp.zeros(N), jnp.full(N, 1e30),
-            v0x, tri[1], tri[2], *tri[3:], jnp.ones(T), interpret=True)
-        m = prim >= 0
-        return jnp.sum(jnp.where(m, t, 0.0) + jnp.where(m, u * v, 0.0))
-
-    def loss_scan(v0x):
-        soup = I.TriSoup(Vec3(v0x, tri[1], tri[2]),
-                         Vec3(*tri[3:6]), Vec3(*tri[6:9]))
-        rays = I.Rays(Vec3(*oxyz), Vec3(*dxyz), jnp.zeros(N),
-                      jnp.full(N, 1e30))
-        h = I.intersect_tris_dense(rays, soup)
-        m = h.prim >= 0
-        return jnp.sum(jnp.where(m, h.t, 0.0) + jnp.where(m, h.u * h.v, 0.0))
-
-    g_pallas = jax.grad(loss_pallas)(tri[0])
-    g_scan = jax.grad(loss_scan)(tri[0])
-    # winners may differ on quantized-key ties; compare where both paths
-    # produce a gradient
-    gp, gs = np.asarray(g_pallas), np.asarray(g_scan)
-    both = (gp != 0) & (gs != 0)
-    assert both.sum() > 10
-    assert np.allclose(gp[both], gs[both], rtol=1e-3, atol=1e-4)
-
-
-def test_pallas_chunk32_cull_exact():
-    """32-chunk scenes (4096 padded tris) must not drop chunk 31: the cull
-    bitmask uses the uint32 sign bit (round-1 int32 overflow bug)."""
-    import numpy as np
-    import jax.numpy as jnp
-    from ignis_tpu.core.vec import Vec3
-    from ignis_tpu.ops import intersect as I
-    from ignis_tpu.ops.pallas_isect import intersect_tris_pallas
-    rng = np.random.default_rng(5)
-    T, N = 4096, 256
-    # spread triangles along x so chunk AABBs are tight and most rays
-    # miss most chunks (cull mask has zeros -> old bug would zero bit 31)
-    v0 = rng.uniform(-0.5, 0.5, (T, 3)).astype(np.float32)
-    v0[:, 0] += np.arange(T, dtype=np.float32) / 16.0
-    e1 = rng.uniform(-0.3, 0.3, (T, 3)).astype(np.float32)
-    e2 = rng.uniform(-0.3, 0.3, (T, 3)).astype(np.float32)
-    # aim rays at the LAST chunk (tris 3968..4095)
-    o = np.zeros((N, 3), np.float32)
-    o[:, 0] = 250.0
-    o[:, 2] = 5.0
-    targets = v0[3968 + (np.arange(N) % 128)] + e1[3968 + (np.arange(N) % 128)] / 3 \
-        + e2[3968 + (np.arange(N) % 128)] / 3
-    d = (targets - o).astype(np.float32)
-    d /= np.linalg.norm(d, axis=1, keepdims=True)
-    soup = I.TriSoup(Vec3(*[jnp.asarray(v0[:, i]) for i in range(3)]),
-                     Vec3(*[jnp.asarray(e1[:, i]) for i in range(3)]),
-                     Vec3(*[jnp.asarray(e2[:, i]) for i in range(3)]))
-    rays = I.Rays(Vec3(*[jnp.asarray(o[:, i]) for i in range(3)]),
-                  Vec3(*[jnp.asarray(d[:, i]) for i in range(3)]),
-                  jnp.zeros(N), jnp.full(N, 1e30))
-    h = I.intersect_tris_dense(rays, soup)
-    t, prim, u, v = intersect_tris_pallas(
-        rays.org.x, rays.org.y, rays.org.z,
-        rays.dir.x, rays.dir.y, rays.dir.z, rays.tmin, rays.tmax,
-        soup.v0.x, soup.v0.y, soup.v0.z,
-        soup.e1.x, soup.e1.y, soup.e1.z,
-        soup.e2.x, soup.e2.y, soup.e2.z,
-        jnp.ones(T), interpret=True)
-    ref_hits = np.asarray(h.prim)
-    got_hits = np.asarray(prim)
-    assert (ref_hits >= 3968).sum() > 100  # the scenario exercises chunk 31
-    assert (got_hits == ref_hits).mean() > 0.999
-
-
-def test_scene_accel_chunk_vs_tri_paths():
-    """Built-scene integration: the Pallas chunked-leaf traversal
-    (interpret) and the XLA tri-leaf walk agree on the same SceneAccel."""
+def _icosphere_scene(subdivisions=4):
+    """A built icosphere scene (5120 triangles: BVH path)."""
     import json
-    import numpy as np
-    import jax.numpy as jnp
     import ignis_tpu
-    from ignis_tpu.core.vec import Vec3
-    from ignis_tpu.ops.bvh import intersect_bvh
-    from ignis_tpu.ops.pallas_bvh import intersect_bvh_pallas
-    from ignis_tpu.ops.intersect import Rays
-
-    scene = {
-        "technique": {"type": "path"},
-        "camera": {"type": "perspective", "fov": 60,
-                   "transform": [1, 0, 0, 0, 0, 1, 0, 0, 0, 0, 1, -4,
-                                 0, 0, 0, 1]},
-        "film": {"size": [32, 32]},
-        "bsdfs": [{"type": "diffuse", "name": "w"}],
-        "shapes": [{"type": "icosphere", "name": "s", "radius": 1.2,
-                    "subdivisions": 5}],
-        "entities": [{"name": "s", "shape": "s", "bsdf": "w"}],
-        "lights": [{"type": "env", "name": "e", "radiance": 1.0}],
-    }
-    rt = ignis_tpu.loadFromString(json.dumps(scene))
-    sc = rt.scene
-    assert sc.bvh is not None and sc.tris.v0.x.shape[0] > 2048
-    rng = np.random.default_rng(2)
-    N = 500
-    o = rng.uniform(-3, 3, (N, 3)).astype(np.float32)
-    d = rng.normal(size=(N, 3)).astype(np.float32)
-    d /= np.linalg.norm(d, axis=1, keepdims=True)
-    rays = Rays(Vec3(*[jnp.asarray(o[:, i]) for i in range(3)]),
-                Vec3(*[jnp.asarray(d[:, i]) for i in range(3)]),
-                jnp.zeros(N), jnp.full(N, 1e30))
-    h_tri = intersect_bvh(rays, sc.tris, sc.bvh.tri)
-    h_chunk = intersect_bvh_pallas(rays, sc.tris, sc.bvh.chunk,
-                                   interpret=True)
-    pt, pc = np.asarray(h_tri.prim), np.asarray(h_chunk.prim)
-    assert ((pt >= 0) == (pc >= 0)).mean() > 0.995
-    m = (pt >= 0) & (pc >= 0)
-    assert np.allclose(np.asarray(h_chunk.t)[m], np.asarray(h_tri.t)[m],
-                       rtol=1e-4)
-    occ_tri = intersect_bvh(rays, sc.tris, sc.bvh.tri, any_hit=True)
-    occ_chunk = intersect_bvh_pallas(rays, sc.tris, sc.bvh.chunk,
-                                     any_hit=True, interpret=True)
-    assert (np.asarray(occ_tri) == np.asarray(occ_chunk)).mean() > 0.995
-
-
-def test_pallas_streaming_sweep_matches_resident():
-    """HBM-streaming sweep (stream=True, double-buffered chunk DMA) must
-    be bit-equal to the VMEM-resident sweep on the same scene (cap
-    lowered so a small scene exercises the streaming path)."""
-    import json
-    import numpy as np
-    import jax.numpy as jnp
-    import ignis_tpu
-    from ignis_tpu.core.vec import Vec3
-    from ignis_tpu.ops import pallas_bvh as PB
-    from ignis_tpu.ops.intersect import Rays
-
     scene = {
         "technique": {"type": "path"},
         "camera": {"type": "perspective", "fov": 60,
@@ -325,34 +143,164 @@ def test_pallas_streaming_sweep_matches_resident():
         "film": {"size": [16, 16]},
         "bsdfs": [{"type": "diffuse", "name": "w"}],
         "shapes": [{"type": "icosphere", "name": "s", "radius": 1.2,
-                    "subdivisions": 4}],
+                    "subdivisions": subdivisions}],
         "entities": [{"name": "s", "shape": "s", "bsdf": "w"}],
         "lights": [{"type": "env", "name": "e", "radiance": 1.0}],
     }
-    rt = ignis_tpu.loadFromString(json.dumps(scene))
-    sc = rt.scene
-    rng = np.random.default_rng(5)
-    N = 300
-    o = rng.uniform(-3, 3, (N, 3)).astype(np.float32)
-    d = rng.normal(size=(N, 3)).astype(np.float32)
-    d /= np.linalg.norm(d, axis=1, keepdims=True)
-    rays = Rays(Vec3(*[jnp.asarray(o[:, i]) for i in range(3)]),
-                Vec3(*[jnp.asarray(d[:, i]) for i in range(3)]),
-                jnp.zeros(N), jnp.full(N, 1e30))
+    sc = ignis_tpu.loadFromString(json.dumps(scene)).scene
+    assert sc.bvh is not None
+    return sc
 
-    h_res = PB.intersect_bvh_pallas(rays, sc.tris, sc.bvh.chunk,
-                                    interpret=True)
-    occ_res = PB.intersect_bvh_pallas(rays, sc.tris, sc.bvh.chunk,
-                                      any_hit=True, interpret=True)
-    old = PB.MAX_TRIS
-    PB.MAX_TRIS = 128  # force stream=True for this small soup
-    try:
-        h_st = PB.intersect_bvh_pallas(rays, sc.tris, sc.bvh.chunk,
-                                       interpret=True)
-        occ_st = PB.intersect_bvh_pallas(rays, sc.tris, sc.bvh.chunk,
-                                         any_hit=True, interpret=True)
-    finally:
-        PB.MAX_TRIS = old
-    assert (np.asarray(h_res.prim) == np.asarray(h_st.prim)).all()
-    np.testing.assert_array_equal(np.asarray(h_res.t), np.asarray(h_st.t))
-    np.testing.assert_array_equal(np.asarray(occ_res), np.asarray(occ_st))
+
+def _sphere_rays(n, seed, dead_every=0):
+    """Rays from a shell around the sphere aimed near it (most hit, some
+    graze or miss); every `dead_every`-th lane is dead (tmax < tmin)."""
+    rng = np.random.default_rng(seed)
+    o = rng.normal(size=(n, 3))
+    o = (o / np.linalg.norm(o, axis=1, keepdims=True) * 3.0).astype(np.float32)
+    aim = rng.uniform(-1.3, 1.3, (n, 3)).astype(np.float32)
+    d = aim - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    tmax = np.full(n, 1e30, np.float32)
+    if dead_every:
+        tmax[::dead_every] = -1.0
+    return Rays(Vec3(*[jnp.asarray(o[:, i]) for i in range(3)]),
+                Vec3(*[jnp.asarray(d[:, i]) for i in range(3)]),
+                jnp.zeros(n), jnp.asarray(tmax))
+
+
+def _check_closest(h, ref):
+    pk, pr = np.asarray(h.prim), np.asarray(ref.prim)
+    assert (pk == pr).mean() > 0.999
+    assert (pr >= 0).mean() > 0.3
+    m = (pk == pr) & (pr >= 0)
+    # same Moller-Trumbore code; the two programs are compiled separately
+    # and may contract different products into FMAs, which moves the
+    # barycentrics (in [0, 1]) by a few float32 ulps of their operands
+    np.testing.assert_allclose(np.asarray(h.t)[m], np.asarray(ref.t)[m],
+                               rtol=1e-5)
+    for a, b in ((h.u, ref.u), (h.v, ref.v)):
+        np.testing.assert_allclose(np.asarray(a)[m], np.asarray(b)[m],
+                                   rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(np.asarray(h.t)[pr < 0], np.float32(3.0e38))
+
+
+# (n rays, dead-lane stride): a whole number of kernel blocks, and a ray
+# count that is not a multiple of the block with dead lanes
+WALK_CASES = {"full_blocks": (512, 0), "ragged_dead": (300, 7)}
+
+
+@pytest.mark.parametrize("case", WALK_CASES)
+def test_walk_kernel_closest_interpret(case):
+    """Per-ray walk kernel (Pallas interpreter) == XLA lockstep walk,
+    closest hit, on a built scene."""
+    from ignis_tpu.ops.bvh_gpu import trace_bvh
+    sc = _icosphere_scene()
+    n, dead = WALK_CASES[case]
+    rays = _sphere_rays(n, seed=2, dead_every=dead)
+    h = trace_bvh(rays, sc.tris, sc.bvh, kernel="interpret")
+    ref = intersect_bvh(rays, sc.tris, sc.bvh)
+    _check_closest(h, ref)
+    if dead:
+        assert (np.asarray(h.prim)[::dead] == -1).all()
+
+
+@pytest.mark.parametrize("case", WALK_CASES)
+def test_walk_kernel_any_hit_interpret(case):
+    """Any-hit with a shadow_visible mask that hides half the triangles:
+    the kernel's occlusion equals the XLA walk's, and hidden triangles
+    never occlude."""
+    from ignis_tpu.ops.bvh_gpu import trace_bvh
+    sc = _icosphere_scene()
+    n, dead = WALK_CASES[case]
+    rays = _sphere_rays(n, seed=4, dead_every=dead)
+    n_tri = sc.tris.v0.x.shape[0]
+    vis = jnp.asarray(np.random.default_rng(0).uniform(size=n_tri) > 0.5)
+    occ = trace_bvh(rays, sc.tris, sc.bvh, any_hit=True, shadow_visible=vis,
+                    kernel="interpret")
+    ref = intersect_bvh(rays, sc.tris, sc.bvh, any_hit=True,
+                        shadow_visible=vis)
+    np.testing.assert_array_equal(np.asarray(occ), np.asarray(ref))
+    assert 0.1 < np.asarray(occ).mean() < 0.9
+    none = trace_bvh(rays, sc.tris, sc.bvh, any_hit=True,
+                     shadow_visible=jnp.zeros(n_tri, bool), kernel="interpret")
+    assert not np.asarray(none).any()
+
+
+def _grads_vs_scan(kernel):
+    """d/d(origin x, v0 x) of sum(t + u*v) over hits: the walk's
+    fixed-winner VJP against the XLA chunk scan's autodiff gradient."""
+    import jax
+    from ignis_tpu.ops.bvh_gpu import trace_bvh
+    from ignis_tpu.ops.intersect import intersect_tris_dense
+    sc = _icosphere_scene(3)
+    rays = _sphere_rays(256, seed=11)
+
+    def loss(trace, ox, v0x):
+        r = rays._replace(org=rays.org._replace(x=ox))
+        s = sc.tris._replace(v0=sc.tris.v0._replace(x=v0x))
+        h = trace(r, s)
+        m = h.prim >= 0
+        return jnp.sum(jnp.where(m, h.t + h.u * h.v, 0.0))
+
+    walk = lambda r, s: trace_bvh(r, s, sc.bvh, kernel=kernel)
+    args = (rays.org.x, sc.tris.v0.x)
+    g_walk = jax.grad(lambda *a: loss(walk, *a), argnums=(0, 1))(*args)
+    g_scan = jax.grad(lambda *a: loss(intersect_tris_dense, *a),
+                      argnums=(0, 1))(*args)
+    for gw, gs in zip(g_walk, g_scan):
+        gw, gs = np.asarray(gw), np.asarray(gs)
+        assert (gs != 0).sum() > 10
+        np.testing.assert_allclose(gw, gs, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("kernel", ["interpret", "xla"])
+def test_walk_vjp_matches_scan_gradient(kernel):
+    """The fixed-winner VJP (shared by the kernel and the XLA walk)
+    reproduces the scan path's gradient in ray origins and vertices."""
+    _grads_vs_scan(kernel)
+
+
+def test_trace_bvh_dispatch_picks_xla_walk_on_cpu():
+    """On the CPU, platform_dependent lowers the XLA walk: the compiled
+    program holds no Triton call, and results equal intersect_bvh."""
+    import jax
+    from ignis_tpu.ops.bvh_gpu import trace_bvh
+    sc = _icosphere_scene(3)
+    rays = _sphere_rays(128, seed=5)
+    f = jax.jit(lambda r: trace_bvh(r, sc.tris, sc.bvh))
+    hlo = f.lower(rays).as_text()
+    assert "triton" not in hlo.lower() and "bvh8_walk" not in hlo
+    h, ref = f(rays), intersect_bvh(rays, sc.tris, sc.bvh)
+    np.testing.assert_array_equal(np.asarray(h.prim), np.asarray(ref.prim))
+    np.testing.assert_array_equal(np.asarray(h.t), np.asarray(ref.t))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", WALK_CASES)
+def test_walk_kernel_on_card(case, cuda_device):
+    """The compiled kernel on the GPU == the XLA walk on the GPU: closest
+    hit and any hit with a shadow_visible mask."""
+    import jax
+    from ignis_tpu.ops.bvh_gpu import trace_bvh
+    with jax.default_device(cuda_device):
+        sc = _icosphere_scene()
+        n, dead = WALK_CASES[case]
+        rays = _sphere_rays(n, seed=2, dead_every=dead)
+        h = jax.jit(lambda r: trace_bvh(r, sc.tris, sc.bvh))(rays)
+        _check_closest(h, intersect_bvh(rays, sc.tris, sc.bvh))
+        n_tri = sc.tris.v0.x.shape[0]
+        vis = jnp.asarray(np.random.default_rng(0).uniform(size=n_tri) > 0.5)
+        occ = jax.jit(lambda r: trace_bvh(r, sc.tris, sc.bvh, any_hit=True,
+                                          shadow_visible=vis))(rays)
+        ref = intersect_bvh(rays, sc.tris, sc.bvh, any_hit=True,
+                            shadow_visible=vis)
+        np.testing.assert_array_equal(np.asarray(occ), np.asarray(ref))
+
+
+@pytest.mark.gpu
+def test_walk_vjp_on_card(cuda_device):
+    """The compiled kernel's fixed-winner VJP == the scan gradient."""
+    import jax
+    with jax.default_device(cuda_device):
+        _grads_vs_scan("auto")

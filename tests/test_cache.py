@@ -95,3 +95,34 @@ def test_scene_load_via_cache_matches(cachedir, tmp_path):
     rt2 = ignis_tpu.loadFromString(txt, base_dir=str(tmp_path))
     np.testing.assert_array_equal(
         np.asarray(rt1.scene.tris.v0.x), np.asarray(rt2.scene.tris.v0.x))
+
+
+def test_compile_cache_in_checkout_when_env_unset(monkeypatch):
+    """Without JAX_COMPILATION_CACHE_DIR the compile cache is the fixed
+    <checkout>/.jax_cache (no temp name, pid or time in the path)."""
+    import jax
+    from ignis_tpu.render.session import configure_compile_cache
+    from ignis_tpu.utils.cache import CHECKOUT
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    old = jax.config.jax_compilation_cache_dir
+    try:
+        path = configure_compile_cache()
+        assert path == CHECKOUT / ".jax_cache" and path.is_dir()
+        assert jax.config.jax_compilation_cache_dir == str(path)
+        assert configure_compile_cache() == path   # same path every time
+    finally:
+        jax.config.update("jax_compilation_cache_dir", old)
+
+
+def test_compile_cache_left_to_jax_when_env_set(monkeypatch, tmp_path):
+    """With JAX_COMPILATION_CACHE_DIR set, the package sets nothing."""
+    import jax
+    from ignis_tpu.render.session import configure_compile_cache
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path / "jc"))
+    old = jax.config.jax_compilation_cache_dir
+    jax.config.update("jax_compilation_cache_dir", "sentinel")
+    try:
+        assert configure_compile_cache() is None
+        assert jax.config.jax_compilation_cache_dir == "sentinel"
+    finally:
+        jax.config.update("jax_compilation_cache_dir", old)

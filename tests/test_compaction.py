@@ -1,5 +1,5 @@
 """Compacting-wavefront equivalence: the host-orchestrated shrinking-bucket
-render (techniques/path.py path_trace_rounds — the TPU analog of the
+render (techniques/path.py path_trace_rounds — the wavefront analog of the
 reference's stream compaction, mapping_cpu.art:205-253) must reproduce the
 single-jit persistent-lane render. RNG streams are keyed by
 (pixel, sample), not lane index, so compaction only changes float summation
@@ -73,12 +73,12 @@ def test_step_gate_matches(monkeypatch):
     """Runtime.step with the compaction gate forced on equals gate off."""
     from ignis_tpu.render import session as sess
 
-    monkeypatch.setenv("IGNIS_TPU_COMPACTION", "1")
+    monkeypatch.setenv("IGNIS_COMPACTION", "1")
     monkeypatch.setattr(sess, "_COMPACTION_MIN_LANES", 1024)
     rt1 = ignis_tpu.loadFromString(json.dumps(SCENE), spi=2)
     rt1.step()
     on = np.asarray(rt1.framebuffer())
-    monkeypatch.setenv("IGNIS_TPU_COMPACTION", "0")
+    monkeypatch.setenv("IGNIS_COMPACTION", "0")
     rt2 = ignis_tpu.loadFromString(json.dumps(SCENE), spi=2)
     rt2.step()
     off = np.asarray(rt2.framebuffer())

@@ -2,8 +2,8 @@
 group over a TCP coordinator (CPU backend, 2 virtual devices each = 4
 global), render the same scene with lanes sharded over the global mesh,
 and must produce identical full films locally via the replicated-output
-all-gather. This is the closest single-machine analog of a 2-host TPU
-slice over DCN (SURVEY.md §2e distributed backend row)."""
+all-gather. This is the closest single-machine analog of two hosts of
+cards (SURVEY.md §2e distributed backend row)."""
 import json
 import os
 import socket

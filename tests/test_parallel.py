@@ -12,6 +12,7 @@ import jax.numpy as jnp
 import pytest
 
 import ignis_tpu
+from conftest import env_substitutes, fixture_scene
 from ignis_tpu.parallel.mesh import (make_mesh, render_iteration_sharded,
                                      train_step_sharded)
 
@@ -77,6 +78,40 @@ def test_train_step_sharded(rt):
     assert not np.allclose(before, after)
 
 
+def test_sharded_loss_and_grads_match_single(rt):
+    """loss_fn with a mesh (lanes sharded, one differentiable cascade per
+    device) gives the single-device loss and material gradients."""
+    if len(jax.devices()) < 2:
+        pytest.skip("needs multiple devices")
+    from ignis_tpu.parallel.mesh import loss_fn
+    mesh = make_mesh()
+    settings = _remat(rt.settings)
+    target = jnp.full((settings.height, settings.width, 3), 0.5, jnp.float32)
+    params = {"base": rt.scene.materials.base}
+    it = jnp.uint32(0)
+    vg = lambda m: jax.jit(jax.value_and_grad(
+        lambda p: loss_fn(p, rt.scene, settings, target, it, it, m)))(params)
+    (l1, g1), (l8, g8) = vg(None), vg(mesh)
+    np.testing.assert_allclose(float(l8), float(l1), rtol=1e-5)
+    for a, b in zip(jax.tree_util.tree_leaves(g8),
+                    jax.tree_util.tree_leaves(g1)):
+        np.testing.assert_allclose(np.asarray(a), np.asarray(b),
+                                   rtol=1e-4, atol=1e-7)
+
+
+def test_sharded_loss_rejects_other_techniques(rt):
+    """The sharded loss runs only the path technique's cascade; another
+    technique is refused instead of running every lane on every device."""
+    from ignis_tpu.parallel.mesh import loss_fn
+    mesh = make_mesh(devices=jax.devices()[:1])
+    settings = rt.settings.__class__(
+        **{**rt.settings.__dict__, "remat": True, "technique": "volpath"})
+    target = jnp.zeros((settings.height, settings.width, 3), jnp.float32)
+    with pytest.raises(NotImplementedError, match="volpath"):
+        loss_fn({"base": rt.scene.materials.base}, rt.scene, settings,
+                target, jnp.uint32(0), jnp.uint32(0), mesh)
+
+
 def test_gradient_finite_difference(rt):
     """Pixel-gradient check vs finite differences on the albedo
     (BASELINE.md gradient gate, small version)."""
@@ -135,13 +170,8 @@ def test_sharded_compact_matches_single():
     np.testing.assert_allclose(img_sh, img_1, rtol=2e-4, atol=2e-5)
 
 
-BASELINE_SCENES = [
-    "/root/reference/scenes/single_triangle.json",
-    "/root/reference/scenes/primitives.json",
-    "/root/reference/scenes/diamond_scene.json",
-    "/root/reference/scenes/environment_map.json",
-    "/root/reference/scenes/participating_media.json",
-]
+BASELINE_SCENES = ["single_triangle", "primitives", "diamond_scene",
+                   "environment_map", "participating_media"]
 
 
 def _fd_check(loss_of, p0, rows=2, eps=1e-3, rtol=0.08):
@@ -164,17 +194,18 @@ def _remat(settings):
     return settings.__class__(**{**settings.__dict__, "remat": True})
 
 
-@pytest.mark.parametrize("path", BASELINE_SCENES,
-                         ids=[p.rsplit("/", 1)[1][:-5] for p in BASELINE_SCENES])
-def test_gradient_gate_baseline_scenes(path):
+@pytest.mark.parametrize("name", BASELINE_SCENES)
+def test_gradient_gate_baseline_scenes(name):
     """BASELINE.md gradient gate: reverse-mode gradients on each of the
-    five config scenes must match central finite differences at 64x64
-    film. Differentiates the material albedo table; environment_map has
-    no BSDFs at all, so there the parameter is the env radiance scale."""
-    rt = ignis_tpu.loadFromFile(path, width=64, height=64, spi=1)
+    five config scenes (generated stand-ins, tests/fixtures/scenes) must
+    match central finite differences at 64x64 film. Differentiates the
+    material albedo table; environment_map has no BSDFs at all, so there
+    the parameter is the env radiance scale."""
+    rt = ignis_tpu.loadFromFile(fixture_scene(name), width=64, height=64,
+                                spi=1, texture_substitutes=env_substitutes())
     settings = _remat(rt.settings)
     scene = rt.scene
-    use_light = "environment_map" in path
+    use_light = name == "environment_map"
 
     def loss_of(p):
         from ignis_tpu.render.session import render_iteration
@@ -223,13 +254,11 @@ def test_gradient_gate_roughness():
 
 def test_gradient_gate_texture_texels():
     """North-star parameter: texture texels. environment_map.json with
-    the (small) generated substitute env HDR; d(image)/d(texel) on the
-    top-gradient texels of the env image must FD-match."""
-    from ignis_tpu.utils.envgen import ensure_substitute_env
-    sub = str(ensure_substitute_env(128, 64))
+    the (small) generated env HDR; d(image)/d(texel) on the top-gradient
+    texels of the env image must FD-match."""
     rt = ignis_tpu.loadFromFile(
-        "/root/reference/scenes/environment_map.json", width=64, height=64,
-        spi=1, texture_substitutes={"phalzer_forest_01_4k.exr": sub})
+        fixture_scene("environment_map"), width=64, height=64, spi=1,
+        texture_substitutes=env_substitutes())
     assert rt.scene.textures, "env texture did not load"
     settings = _remat(rt.settings)
     scene = rt.scene
@@ -246,18 +275,14 @@ def test_gradient_gate_texture_texels():
 
 def test_gradient_gate_volume_sigma():
     """North-star parameter: volume scattering coefficients. The
-    participating_media config scene with its PExpr medium replaced by
-    table constants; d(image)/d(sigma_s) and d(image)/d(sigma_a) must
-    FD-match through the volpath scan."""
-    import re
-    text = open("/root/reference/scenes/participating_media.json").read()
-    text = re.sub(r"//[^\n]*", "", text)
-    d = json.loads(text)
+    participating_media config scene with its medium coefficients set
+    here; d(image)/d(sigma_s) and d(image)/d(sigma_a) must FD-match
+    through the volpath scan."""
+    d = json.loads(fixture_scene("participating_media").read_text())
     d["media"][0]["sigma_a"] = [0.4, 0.4, 0.4]
     d["media"][0]["sigma_s"] = [0.25, 0.25, 0.25]
     d["film"] = {"size": [64, 64]}
-    rt = ignis_tpu.loadFromString(json.dumps(d),
-                                  base_dir="/root/reference/scenes")
+    rt = ignis_tpu.loadFromString(json.dumps(d))
     settings = _remat(rt.settings)
     scene = rt.scene
     assert float(np.asarray(scene.media.sigma_s.r).max()) > 0

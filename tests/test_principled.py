@@ -5,7 +5,7 @@ import pytest
 
 from ignis_tpu.core.vec import color
 from ignis_tpu.models import bsdf as B
-from tests.test_bsdf import N, check_consistency, frame_z, make_mat, rand_dirs, \
+from test_bsdf import N, check_consistency, frame_z, make_mat, rand_dirs, \
     uniforms
 
 

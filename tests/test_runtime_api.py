@@ -122,25 +122,19 @@ def test_denoiser_reduces_mse():
 
 def test_mitsuba_converter_matches_native():
     """A Mitsuba XML scene converted with scene/mitsuba.py renders the same
-    image as the hand-written ignis JSON of the same scene."""
-    import os
+    image as the hand-written ignis JSON of the same scene (both in
+    tests/fixtures/scenes)."""
+    from conftest import FIXTURE_SCENES
     from ignis_tpu.scene.mitsuba import convert_mitsuba
-    cwd = os.getcwd()
-    try:
-        os.chdir("/root/reference/scenes")
-        d = convert_mitsuba("evaluation/mitsuba/emissive-plane.xml")
-        d["film"]["size"] = [32, 32]
-        rt = ignis_tpu.loadFromString(json.dumps(d), base_dir="evaluation",
-                                      spi=32)
-        rt.step()
-        a = np.asarray(rt.framebuffer(normalized=True))
-        rt2 = ignis_tpu.loadFromFile(
-            "/root/reference/scenes/evaluation/emissive-plane.json",
-            spi=32, width=32, height=32)
-        rt2.step()
-        b = np.asarray(rt2.framebuffer(normalized=True))
-    finally:
-        os.chdir(cwd)
+    d = convert_mitsuba(FIXTURE_SCENES / "mitsuba" / "emissive-plane.xml")
+    rt = ignis_tpu.loadFromString(json.dumps(d), spi=32)
+    rt.step()
+    a = np.asarray(rt.framebuffer(normalized=True))
+    rt2 = ignis_tpu.loadFromFile(FIXTURE_SCENES / "emissive-plane.json",
+                                 spi=32)
+    rt2.step()
+    b = np.asarray(rt2.framebuffer(normalized=True))
+    assert b.mean() > 0.05
     assert abs(a.mean() - b.mean()) / b.mean() < 0.02
 
 
@@ -209,3 +203,12 @@ def test_interactive_orbit_loop_no_recompile():
         means.append(rt.framebuffer(normalized=True).mean())
     assert fn._cache_size() == n0
     assert len(set(np.round(means, 6))) > 1  # the view actually moved
+
+
+def test_fixture_scenes_match_generators():
+    """tests/fixtures/scenes/*.json are exactly what
+    ignis_tpu.scene.fixtures writes (python -m ignis_tpu.scene.fixtures)."""
+    from ignis_tpu.scene.fixtures import CONFIG_SCENES, FIXTURE_DIR
+    for name, make in CONFIG_SCENES.items():
+        on_disk = json.loads((FIXTURE_DIR / f"{name}.json").read_text())
+        assert on_disk == json.loads(json.dumps(make())), name
